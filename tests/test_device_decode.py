@@ -12,10 +12,10 @@ src/build_table.cpp:306-436.
 import numpy as np
 import pytest
 
-from radixjoin_tpu.dtypes import NULL, DataType
-from radixjoin_tpu.storage import device_decode as dd
-from radixjoin_tpu.storage import page as pc
-from radixjoin_tpu.storage.columnar import Column, ColumnarTable, HostTable, sorted_rows
+from radixjoin.dtypes import NULL, DataType
+from radixjoin.storage import device_decode as dd
+from radixjoin.storage import page as pc
+from radixjoin.storage.columnar import Column, ColumnarTable, HostTable, sorted_rows
 
 FIXED = [
     (DataType.INT32, np.int32),
@@ -86,7 +86,7 @@ def test_all_null_and_all_valid_pages():
 
 def _exec_rows(table, num_rows, types):
     """Join the table against itself via the public API and return rows."""
-    from radixjoin_tpu import Plan, build_context, execute
+    from radixjoin import Plan, build_context, execute
 
     plan = Plan()
     ti = plan.new_input(table)
@@ -103,7 +103,7 @@ def test_engine_scan_paged_vs_host_paths(monkeypatch):
     n = 4321
     types = [DataType.INT32, DataType.INT64, DataType.FP64]
     cols, host_cols = [], []
-    from radixjoin_tpu.storage.columnar import HostColumn
+    from radixjoin.storage.columnar import HostColumn
 
     for dtype, npdt in FIXED:
         vals, valid = _column(rng, npdt, n)
@@ -126,7 +126,7 @@ def test_engine_scan_paged_vs_host_paths(monkeypatch):
 def test_join_over_paged_inputs():
     """An FK join whose inputs arrive as raw aligned pages (the CSV-ingest
     shape) joins exactly: device decode feeds the join kernels."""
-    from radixjoin_tpu import Plan, build_context, execute
+    from radixjoin import Plan, build_context, execute
 
     rng = np.random.default_rng(5)
     nb, npr = 3000, 7000

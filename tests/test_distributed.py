@@ -5,8 +5,8 @@ import pytest
 
 import jax
 
-from radixjoin_tpu.parallel import DistJoinConfig, distributed_join, make_mesh
-from radixjoin_tpu.parallel.dist_join import collect_to_host
+from radixjoin.parallel import DistJoinConfig, distributed_join, make_mesh
+from radixjoin.parallel.dist_join import collect_to_host
 
 
 def reference_join(bk, bv, bp, pk, pv, pp):
@@ -182,31 +182,27 @@ def test_distributed_matches_hot_and_cold_disjoint(mesh):
 # exact vs the row-semantics oracle.
 # ---------------------------------------------------------------------------
 
-import json
-
 import pytest
 
-from radixjoin_tpu.harness import datagen, oracle
-from radixjoin_tpu.harness.run import JobHarness, TableSource
-from radixjoin_tpu.parallel.dist_executor import execute_distributed
-
-PLANS = "/root/reference/plans.json"
-SQL_DIR = "/root/reference/job"
+from radixjoin.harness import datagen, oracle
+from radixjoin.harness.run import (
+    DEFAULT_PLANS, JobHarness, TableSource, load_workload,
+)
+from radixjoin.parallel.dist_executor import execute_distributed
 
 
 @pytest.fixture(scope="module")
 def job_harness():
-    doc = json.load(open(PLANS))
-    queries = datagen.load_job_queries(SQL_DIR, doc["names"])
+    _, _, queries = load_workload()
     gen = datagen.SyntheticIMDB(scale=0.0004, seed=7, queries=queries)
     tables = gen.generate()
-    return JobHarness(PLANS, TableSource(host_tables=tables), SQL_DIR)
+    return JobHarness(DEFAULT_PLANS, TableSource(host_tables=tables))
 
 
 # short plans keep the per-join shard_map compile bill affordable on the
-# virtual CPU mesh; 8d exercises duplicate-heavy joins, 3b FP64-free
-# mid-tree, 1a the canonical 4-join chain
-@pytest.mark.parametrize("name", ["1a", "3b", "8d"])
+# virtual CPU mesh; s8 exercises duplicate-heavy joins, s3 an IN list
+# over movie_info, s1 the canonical 4-join chain
+@pytest.mark.parametrize("name", ["s1", "s3", "s8"])
 def test_distributed_full_plan_job(job_harness, name):
     _, plan = job_harness.build_plan(name)
     result = execute_distributed(plan)
@@ -221,14 +217,14 @@ def test_distributed_feedback_warm_replay(job_harness):
     sync-free from the learned feedback (capacities, hot keys, output
     buckets) with one batched validation at the root — and must return
     the identical result."""
-    from radixjoin_tpu.parallel import dist_executor
+    from radixjoin.parallel import dist_executor
 
-    _, plan = job_harness.build_plan("3b")
+    _, plan = job_harness.build_plan("s3")
     first = execute_distributed(plan).to_rows()
     key = dist_executor._plan_key(plan)
     assert any(k[0] == key for k in dist_executor._DIST_FEEDBACK), \
         "cold run must learn feedback"
-    _, plan2 = job_harness.build_plan("3b")  # fresh Plan, same content key
+    _, plan2 = job_harness.build_plan("s3")  # fresh Plan, same content key
     assert dist_executor._plan_key(plan2) == key
     second = execute_distributed(plan2).to_rows()
     ok, detail = oracle.rows_equal(second, first)
@@ -239,11 +235,11 @@ def test_distributed_feedback_stale_detection(mesh):
     """Same plan shape + row counts but DIFFERENT data: the warm replay's
     learned totals cannot match, the root check must fail, and the cold
     rerun must still be exact."""
-    from radixjoin_tpu.dtypes import DataType
-    from radixjoin_tpu.harness import oracle as orc
-    from radixjoin_tpu.parallel import dist_executor
-    from radixjoin_tpu.plan.ir import Plan
-    from radixjoin_tpu.storage.columnar import ColumnarTable, HostTable
+    from radixjoin.dtypes import DataType
+    from radixjoin.harness import oracle as orc
+    from radixjoin.parallel import dist_executor
+    from radixjoin.plan.ir import Plan
+    from radixjoin.storage.columnar import ColumnarTable, HostTable
 
     def make(bkeys, pkeys):
         plan = Plan()
@@ -284,9 +280,9 @@ def test_distributed_feedback_stale_detection(mesh):
 def test_distributed_plan_empty_and_mismatch(mesh):
     """Type-mismatch joins and empty children are empty, like the
     single-chip engine (src/execute.cpp:50, :75-83)."""
-    from radixjoin_tpu.dtypes import DataType
-    from radixjoin_tpu.plan.ir import Plan
-    from radixjoin_tpu.storage.columnar import ColumnarTable, HostTable
+    from radixjoin.dtypes import DataType
+    from radixjoin.plan.ir import Plan
+    from radixjoin.storage.columnar import ColumnarTable, HostTable
 
     plan = Plan()
     t0 = plan.new_input(ColumnarTable.from_host(HostTable.from_rows(

@@ -15,7 +15,7 @@ against harness.oracle.execute_plan_rows.
 import numpy as np
 import pytest
 
-from radixjoin_tpu import (
+from radixjoin import (
     ColumnarTable,
     DataType,
     NULL,
@@ -24,8 +24,13 @@ from radixjoin_tpu import (
     destroy_context,
     execute,
 )
-from radixjoin_tpu.harness.oracle import execute_plan_rows, rows_equal
-from radixjoin_tpu.storage.columnar import HostTable
+from radixjoin.harness.oracle import (
+    execute_plan_numpy,
+    execute_plan_rows,
+    rows_equal,
+    tables_equal,
+)
+from radixjoin.storage.columnar import HostTable
 
 I32 = DataType.INT32
 I64 = DataType.INT64
@@ -177,7 +182,7 @@ def test_fuzz_spill_executor(seed, monkeypatch):
 
 @pytest.mark.parametrize("seed", range(4))
 def test_fuzz_distributed(seed):
-    from radixjoin_tpu.parallel.dist_executor import execute_distributed
+    from radixjoin.parallel.dist_executor import execute_distributed
 
     rng = np.random.default_rng(2000 + seed)
     plan = gen_plan(rng)
@@ -191,7 +196,7 @@ def test_fuzz_execute_many_batch():
     # One batch of generated plans through the throughput API: mixed
     # dtypes and sizes, some falling back (VARCHAR keys / tiny inputs),
     # all compared to the oracle in one execute_many call.
-    from radixjoin_tpu import execute_many
+    from radixjoin import execute_many
 
     plans = [gen_plan(np.random.default_rng(5000 + s)) for s in range(6)]
     expected = [_mask_nan(execute_plan_rows(p)) for p in plans]
@@ -203,3 +208,25 @@ def test_fuzz_execute_many_batch():
     for s, (exp, res) in enumerate(zip(expected, results)):
         ok, msg = rows_equal(_mask_nan(res.to_host().to_rows()), exp)
         assert ok, f"batch plan {s}: {msg}"
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_fuzz_numpy_reference(seed):
+    # The vectorized numpy reference must agree with the row interpreter
+    # on every generated plan (NULL/NaN/-0.0 keys, VARCHAR keys, type
+    # mismatches, empty inputs), and the column-wise comparison must
+    # agree with the row-wise one on the engine's result.
+    rng = np.random.default_rng(6000 + seed)
+    plan = gen_plan(rng)
+    reference = execute_plan_numpy(plan)
+    ok, msg = rows_equal(
+        _mask_nan(reference.to_rows()), _mask_nan(execute_plan_rows(plan))
+    )
+    assert ok, f"seed {seed} numpy reference: {msg}"
+    ctx = build_context()
+    try:
+        actual = execute(plan, ctx).to_host()
+    finally:
+        destroy_context(ctx)
+    ok, msg = tables_equal(actual, reference)
+    assert ok, f"seed {seed} engine vs numpy reference: {msg}"

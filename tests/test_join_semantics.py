@@ -6,8 +6,11 @@ canonicalization, VARCHAR joins, type-mismatch joins, and multi-join trees.
 """
 
 import numpy as np
+import pytest
 
-from radixjoin_tpu import (
+import jax.numpy as jnp
+
+from radixjoin import (
     ColumnarTable,
     DataType,
     NULL,
@@ -16,7 +19,7 @@ from radixjoin_tpu import (
     destroy_context,
     execute,
 )
-from radixjoin_tpu.storage.columnar import HostTable, sorted_rows
+from radixjoin.storage.columnar import HostTable, sorted_rows
 
 I32 = DataType.INT32
 I64 = DataType.INT64
@@ -369,7 +372,7 @@ def test_varchar_join_keys_fuse():
     """VARCHAR join keys lower in the fused compiler (unified-dictionary
     device-CSR), not via the wave-executor fallback — duplicates, NULLs,
     and strings private to one side all behave."""
-    from radixjoin_tpu import engine
+    from radixjoin import engine
 
     rows_l = [[b"apple", 1], [b"pear", 2], [None, 3], [b"apple", 4],
               [b"quince", 5]]
@@ -404,3 +407,28 @@ def test_varchar_join_keys_fuse():
     got2 = sorted_rows(engine.execute(plan, engine.build_context())
                        .to_host().to_rows())
     assert got2 == expected
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.bool_])
+def test_gather_expand_fallback_exact(dtype):
+    """The shared-index-stream gather is exact on i32, i64 and bool
+    planes at any index order (random, out of any window)."""
+    import jax
+
+    from radixjoin.ops import join as join_ops
+
+    rng = np.random.default_rng(4)
+    s_len = 50000
+    if dtype is np.bool_:
+        tabs = [rng.random(s_len) < 0.5 for _ in range(2)]
+    else:
+        info = np.iinfo(dtype)
+        tabs = [rng.integers(info.min, info.max, s_len, dtype=dtype)
+                for _ in range(2)]
+    pos = rng.integers(0, s_len, 20000).astype(np.int32)
+    outs = jax.jit(join_ops.gather_expand_multi)(
+        [jnp.asarray(t) for t in tabs], jnp.asarray(pos)
+    )
+    for t, o in zip(tabs, outs):
+        assert np.asarray(o).dtype == t.dtype
+        np.testing.assert_array_equal(np.asarray(o), t[pos])

@@ -10,30 +10,27 @@ These tests drive real plans through artificially tiny budgets and check
 admission control neither deadlocks nor corrupts results.
 """
 
-import json
 import threading
 
 import pytest
 
-from radixjoin_tpu import engine
-from radixjoin_tpu.engine import DeviceLedger, device_ledger
-from radixjoin_tpu.harness import datagen, oracle
-from radixjoin_tpu.harness.run import JobHarness, TableSource
+from radixjoin import engine
+from radixjoin.engine import DeviceLedger, device_ledger
+from radixjoin.harness import datagen, oracle
+from radixjoin.harness.run import (
+    DEFAULT_PLANS, JobHarness, TableSource, load_workload,
+)
 
-PLANS = "/root/reference/plans.json"
-SQL_DIR = "/root/reference/job"
-
-QUERIES = ["1a", "2a", "3b", "5c", "8d", "10c"]
+QUERIES = ["s1", "s2", "s3", "s5", "s8", "s10"]
 
 
 @pytest.fixture(scope="module")
 def setup():
-    doc = json.load(open(PLANS))
-    queries = datagen.load_job_queries(SQL_DIR, doc["names"])
+    _, _, queries = load_workload()
     gen = datagen.SyntheticIMDB(scale=0.0004, seed=7, queries=queries)
     tables = gen.generate()
     source = TableSource(host_tables=tables)
-    harness = JobHarness(PLANS, source, SQL_DIR)
+    harness = JobHarness(DEFAULT_PLANS, source)
     return harness, oracle.SqliteOracle(tables)
 
 
@@ -260,7 +257,7 @@ def test_estimator_includes_join_intermediates(setup):
     """r2 verdict #1: the estimate must exceed scan bytes (join output
     buffers + sort transients are the part round 2 missed)."""
     harness, _ = setup
-    plan = harness.build_plan("8d")[1]
+    plan = harness.build_plan("s8")[1]
     scans = engine._estimate_scan_bytes(plan)
     est = engine._estimate_query_bytes(plan)
     assert est > scans

@@ -3,17 +3,17 @@
 import numpy as np
 import pytest
 
-from radixjoin_tpu.dtypes import DataType, PAGE_SIZE
-from radixjoin_tpu.storage import native
-from radixjoin_tpu.storage import page as pc
-from radixjoin_tpu.storage import ingest
-from radixjoin_tpu.storage.columnar import (
+from radixjoin.dtypes import DataType, PAGE_SIZE
+from radixjoin.storage import native
+from radixjoin.storage import page as pc
+from radixjoin.storage import ingest
+from radixjoin.storage.columnar import (
     HostColumn,
     HostTable,
     heap_to_objects,
     objects_to_heap,
 )
-from radixjoin_tpu.sql.predicate import like_regex
+from radixjoin.sql.predicate import like_regex
 
 pytestmark = pytest.mark.skipif(
     native.lib() is None, reason="native toolchain unavailable"
@@ -196,7 +196,7 @@ def test_native_csv_crlf(tmp_path, monkeypatch):
         (2, b"quoted\r\nnewline"),  # quoted CRLF is data, not a row break
     ]
 
-    from radixjoin_tpu.dtypes import NULL
+    from radixjoin.dtypes import NULL
 
     table = ingest.parse_csv(path, types)
     assert table.num_rows == 3
@@ -215,7 +215,7 @@ def test_native_csv_crlf(tmp_path, monkeypatch):
 
 
 def test_csv_roundtrip_via_write(tmp_path):
-    from radixjoin_tpu.dtypes import NULL
+    from radixjoin.dtypes import NULL
 
     rows = [
         (1, "plain"),
@@ -238,7 +238,7 @@ def test_csv_roundtrip_via_write(tmp_path):
 
 
 def test_gather_varlen_native_matches_numpy():
-    from radixjoin_tpu.storage import native as native_mod
+    from radixjoin.storage import native as native_mod
 
     rng = np.random.default_rng(3)
     n = 5000

@@ -9,10 +9,10 @@ chains, and multi-page spill.
 import numpy as np
 import pytest
 
-from radixjoin_tpu.dtypes import DataType, PAGE_SIZE
-from radixjoin_tpu.storage import page as pc
-from radixjoin_tpu.storage.columnar import ColumnarTable, HostTable
-from radixjoin_tpu.dtypes import NULL
+from radixjoin.dtypes import DataType, PAGE_SIZE
+from radixjoin.storage import page as pc
+from radixjoin.storage.columnar import ColumnarTable, HostTable
+from radixjoin.dtypes import NULL
 
 
 def roundtrip_fixed(values, valid, dtype):
@@ -177,7 +177,7 @@ def test_reference_decoder_compat_varchar():
     long-string pages flagged num_rows==0xffff (first, u16 num_chars at
     +2) / 0xfffe (continuation appending to the previous row).
     """
-    from radixjoin_tpu.storage.columnar import objects_to_heap
+    from radixjoin.storage.columnar import objects_to_heap
 
     values = _obj([b"ab", b"", b"xyz", b"Movie (2001)", b"L" * 9000, b"tail"])
     valid = np.array([True, True, False, True, True, True])
@@ -219,8 +219,8 @@ def test_host_pool_parallel_codec_round_trip():
     serial path (RJT_HOST_THREADS=0)."""
     import os
     import numpy as np
-    from radixjoin_tpu.dtypes import DataType
-    from radixjoin_tpu.storage.columnar import ColumnarTable, HostColumn, HostTable
+    from radixjoin.dtypes import DataType
+    from radixjoin.storage.columnar import ColumnarTable, HostColumn, HostTable
 
     rng = np.random.default_rng(11)
     n = 5000
@@ -258,8 +258,8 @@ def test_host_pool_parallel_codec_round_trip():
 
 def test_pretty_print():
     import numpy as np
-    from radixjoin_tpu.dtypes import DataType
-    from radixjoin_tpu.storage.columnar import HostColumn, HostTable
+    from radixjoin.dtypes import DataType
+    from radixjoin.storage.columnar import HostColumn, HostTable
 
     t = HostTable(2, [
         HostColumn(DataType.INT32, np.array([1, 2], np.int32),

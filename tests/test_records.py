@@ -15,14 +15,14 @@ import re
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: matches our benchmarks/ citations; the negative lookbehind skips paths
-#: into the read-only reference snapshot (/root/reference/benchmarks/...).
+#: into the reference repository (reference/benchmarks/...).
 #: Extensionless citations ("benchmarks/roofline_v3") must resolve too —
 #: round 3's first rule violation hid behind the old extension-required
 #: regex (VERDICT r3 weak #3); a bare name resolves if any committed file
 #: with that stem exists.
 CITE = re.compile(r"(?<!reference/)benchmarks/([A-Za-z0-9_.\-]+)")
 
-SCAN_DIRS = ["radixjoin_tpu", "tools", "docs", "tests"]
+SCAN_DIRS = ["radixjoin", "tools", "docs", "tests"]
 SCAN_FILES = ["bench.py", "README.md"]
 
 
@@ -93,7 +93,7 @@ def test_records_not_stale():
 
     * name a commit that is an ancestor of HEAD, and
     * have NO later commits touching the kernel/compiler tree
-      (radixjoin_tpu/ops, radixjoin_tpu/plan) — or carry a
+      (radixjoin/ops, radixjoin/plan) — or carry a
       ``staleness_waiver`` string explaining why the later commits do not
       change what the record measured (e.g. docstring-only edits).
 
@@ -124,7 +124,7 @@ def test_records_not_stale():
             continue
         _, later = _git(
             "log", "--oneline", f"{commit}..HEAD", "--",
-            "radixjoin_tpu/ops", "radixjoin_tpu/plan",
+            "radixjoin/ops", "radixjoin/plan",
         )
         if later:
             problems.append(

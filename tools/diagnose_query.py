@@ -1,4 +1,4 @@
-"""Diagnose why a JOB query returns zero rows on the synthetic IMDB.
+"""Diagnose why a workload query returns zero rows on the synthetic IMDB.
 
 Computes, per query entity, the filtered row count and the surviving
 movie-id / person-id sets after semi-joining through dimension filters
@@ -6,11 +6,10 @@ movie-id / person-id sets after semi-joining through dimension filters
 cumulative intersection — the first step that hits zero is the starved
 link. Host-side numpy only; no engine involved.
 
-Run: python tools/diagnose_query.py 26a [--scale 0.1]
+Run: python tools/diagnose_query.py s29 [--scale 0.1]
 """
 
 import argparse
-import json
 import os
 import sys
 
@@ -20,12 +19,10 @@ os.environ["JAX_PLATFORMS"] = "cpu"
 
 import numpy as np
 
-from radixjoin_tpu.harness import datagen
-from radixjoin_tpu.sql import catalog
-from radixjoin_tpu.sql.frontend import ParsedSQL
-
-PLANS = "/root/reference/plans.json"
-SQL_DIR = "/root/reference/job"
+from radixjoin.harness import datagen
+from radixjoin.harness.run import load_workload
+from radixjoin.sql import catalog
+from radixjoin.sql.frontend import ParsedSQL
 
 
 def col(table, name):
@@ -42,14 +39,12 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
-    with open(PLANS) as f:
-        all_names = json.load(f)["names"]
-    queries = datagen.load_job_queries(SQL_DIR, all_names)
+    names, _, queries = load_workload()
     tabs = datagen.generate_cached(
         args.scale, args.seed, queries,
         cache_dir=os.path.join(REPO, ".bench_cache"),
     )
-    sql = open(f"{SQL_DIR}/{args.query}.sql").read()
+    sql = queries[names.index(args.query)]
     p = ParsedSQL(sql)
 
     # pass 1: filter masks + per-entity id sets

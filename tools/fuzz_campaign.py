@@ -40,8 +40,8 @@ def run_chunk(start: int, count: int, modes: str) -> int:
 
     import numpy as np
 
-    from radixjoin_tpu import build_context, destroy_context, execute
-    from radixjoin_tpu.harness.oracle import execute_plan_rows, rows_equal
+    from radixjoin import build_context, destroy_context, execute
+    from radixjoin.harness.oracle import execute_plan_rows, rows_equal
     from test_fuzz_plans import _mask_nan, gen_plan
 
     mode_list = [m for m in modes.split(",") if m]
@@ -71,8 +71,8 @@ def run_chunk(start: int, count: int, modes: str) -> int:
             if mode == "spill":
                 env_mode, budget = "auto", "4096"
             if mode in ("dist", "dist_chunked"):
-                from radixjoin_tpu.parallel import DistJoinConfig, make_mesh
-                from radixjoin_tpu.parallel.dist_executor import (
+                from radixjoin.parallel import DistJoinConfig, make_mesh
+                from radixjoin.parallel.dist_executor import (
                     execute_distributed,
                 )
 

@@ -5,12 +5,11 @@ of the same 8-device CPU mesh:
 
 - 1 process x 8 devices (every collective stays in-process), and
 - 2 processes x 4 devices (half the all-to-all lanes cross a process
-  boundary over gloo/TCP — the DCN analogue of a TPU pod's cross-host
-  hops; real multi-chip hardware is not available in this environment).
+  boundary over gloo/TCP, as they would between hosts).
 
 Efficiency = t(1 proc) / t(2 procs) for constant global work: the
 fraction of single-controller throughput that survives the process
-boundary. Writes ``benchmarks/multihost_cluster.json``.
+boundary. Writes the record to ``--out`` when given.
 
 Usage: python tools/multihost_bench.py [--rows N] [--repeats R]
 """
@@ -91,31 +90,29 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1 << 21)
     ap.add_argument("--repeats", type=int, default=3)
-    ap.add_argument("--out", default=os.path.join(
-        REPO, "benchmarks", "multihost_cluster.json"))
+    ap.add_argument("--out", default=None, help="write the record here")
     ap.add_argument("--job", action="store_true",
-                    help="run real JOB queries at --scale through the "
-                         "2-process cluster instead of the synthetic join "
-                         "(BASELINE.json config 5: multi-host shuffle join "
-                         "on 10x-scaled IMDB)")
+                    help="run the in-repo workload's queries at --scale "
+                         "through the 2-process cluster instead of the "
+                         "synthetic join")
     ap.add_argument("--scale", type=float, default=0.1)
-    ap.add_argument("--queries", default="1a,6a,8d,9d,16b,6f")
+    ap.add_argument("--queries", default="s1,s3,s8,s16")
     args = ap.parse_args()
 
     if args.job:
         extra = ["--scale", str(args.scale), "--job-queries", args.queries]
         rec = run_cluster(2, 4, 0, args.repeats, scenario="job",
                           extra_args=extra, timeout_s=7200)
-        out = os.path.join(REPO, "benchmarks", "multihost_job_10x.json")
         rec["description"] = (
-            "JOB queries executed SPMD over a 2-process x 4-device CPU "
-            "mesh (gloo cross-process collectives) on synthetic IMDB at "
-            f"scale {args.scale}; rank-0 results verified vs the sqlite "
+            "workload queries executed SPMD over a 2-process x 4-device "
+            "CPU mesh (gloo cross-process collectives) on synthetic IMDB "
+            f"at scale {args.scale}; rank-0 results verified vs the sqlite "
             "oracle"
         )
-        with open(out, "w") as f:
-            json.dump(rec, f, indent=2)
-        print(f"job cluster record -> {out}", flush=True)
+        print(json.dumps(rec, indent=2), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(rec, f, indent=2)
         return
 
     decomps = {}
@@ -133,7 +130,7 @@ def main():
         "description": (
             "same global shuffle join under 1x8 / 2x4 / 4x2 process "
             "decompositions of an 8-device CPU mesh (gloo cross-process "
-            "collectives; the DCN analogue available in this environment). "
+            "collectives). "
             "mean ± sigma over steady-state iterations (2 warmup "
             "iterations dropped: compile + runtime settle)"
         ),
@@ -146,11 +143,11 @@ def main():
         },
         "decompositions": {str(np): decomps[np] for np in decomps},
     }
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
-        json.dump(record, f, indent=2)
     print(f"cross-process efficiency: "
-          f"{record['cross_process_efficiency']} -> {args.out}", flush=True)
+          f"{record['cross_process_efficiency']}", flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(record, f, indent=2)
 
 
 if __name__ == "__main__":
